@@ -134,14 +134,15 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: jax.Array,
     then take ``(data, v)``), so re-solving with a new factorization reuses the
     compiled program.
 
-    Mixed precision (the TPU-native configuration): pass ``inner_dtype='float32'``
-    (+ an f32 ``mv_data_inner``) to run the Arnoldi cycles - basis, orthogonalization,
-    inner matvecs - in f32 while the solution update, residual and convergence test
-    stay in ``b.dtype`` (f64).  The true-residual restart check makes the outer loop
-    behave as iterative refinement, so reltol ~1e-9 targets are reached even though
-    TPU f64 is software-emulated and the inner cycles never touch it.  Set ``m_eps``
-    around the inner dtype's epsilon (e.g. 1e-6) so a cycle restarts once its Givens
-    estimate falls below what the reduced-precision basis can deliver.
+    Mixed precision (optional): pass ``inner_dtype='float32'`` (+ an f32
+    ``mv_data_inner``) to run the Arnoldi cycles - basis, orthogonalization, inner
+    matvecs - in f32 while the solution update, residual and convergence test stay
+    in ``b.dtype`` (f64).  The inner cycles then move half the bytes.  The
+    true-residual restart check makes the outer loop behave as iterative
+    refinement, so reltol ~1e-9 targets are still reached; with ``escalate`` an
+    outer-precision phase finishes what the f32 cycles cannot.  Set ``m_eps``
+    around the inner dtype's epsilon (e.g. 1e-6) so a cycle restarts once its
+    Givens estimate falls below what the reduced-precision basis can deliver.
     """
     if maxiter is None:
         maxiter = restart
@@ -158,8 +159,8 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: jax.Array,
     # still capped at ~maxiter preconditioned matvecs
     ncycles = int(maxiter)
     idt = None if inner_dtype is None else jnp.dtype(inner_dtype).name
-    # trace at full f32 matmul accuracy (at TPU default precision the f32 sweeps
-    # and CGS2 orthogonalization run as bf16 passes and lose further digits)
+    # trace at full f32 matmul accuracy: at default precision the f32 sweeps and
+    # CGS2 orthogonalization may run in TF32 on the GPU and lose further digits
     with jax.default_matmul_precision("highest"):
         if idt is not None and escalate:
             x, iters, hist, res, bnorm = _gmres_escalated(
@@ -173,9 +174,8 @@ def gmres_compiled(matvec: Callable, M: Optional[Callable], b: jax.Array,
                 mv_data_inner, idt)
     if not fetch_info:
         # deferred-fetch mode: x and the raw device scalars come back immediately;
-        # the caller blocks on x (the solve result) and fetches diagnostics later -
-        # device->host fetches of fresh buffers are the latency hot spot on
-        # remote-attached TPUs, and they are not part of the solve itself
+        # the caller blocks on x (the solve result) and fetches diagnostics later,
+        # outside whatever it times
         return x, {"_device": (iters, hist, res, bnorm), "reltol": reltol}
     # one consolidated device->host fetch (dispatch round-trips dominate small solves)
     iters, hist, res, bnorm = jax.device_get((iters, hist, res, bnorm))
@@ -226,8 +226,8 @@ def _gmres_cycles(mv_fn, m_fn, mv_data, M_data, b, reltol, restart, ncycles, max
         mask = (jnp.arange(m + 1) <= j).astype(dtype)
 
         # CGS2 (classical Gram-Schmidt, twice): two GEMV pairs instead of a
-        # sequential MGS scan - the orthogonalization then runs on the MXU and
-        # keeps MGS-grade orthogonality (Giraud et al.)
+        # sequential MGS scan - the orthogonalization runs as matrix-vector
+        # products and keeps MGS-grade orthogonality (Giraud et al.)
         h1 = (jnp.conj(V) @ w) * mask
         w = w - V.T @ h1
         h2 = (jnp.conj(V) @ w) * mask
@@ -330,8 +330,7 @@ def _gmres_escalated(mv_fn, m_fn, mv_data, M_data, b, reltol, restart, ncycles,
     survive a CPU reproduction with exact f32 matmuls).  Phase 2 solves the
     residual system in outer precision; when phase 1 already converged its
     cycle loop exits on the initial done flag, so the escalation costs one
-    matvec.  Fused into one jitted program - a separate dispatch cost ~7ms per
-    solve on remote-attached TPUs."""
+    matvec.  Fused into one jitted program (one dispatch per solve)."""
     x, iters, hist, res, bnorm = _gmres_cycles(
         mv_fn, m_fn, mv_data, M_data, b, reltol, restart, ncycles, maxiter,
         m_eps, mv_data_inner, inner_dtype)

@@ -1,8 +1,10 @@
 """Native (C++) planner kernels with transparent build + ctypes bindings.
 
-Compiled on first import into the package directory; falls back to scipy fancy
-indexing if no compiler is available (the kernels are host-side planner
-accelerators - the device compute path is XLA/Pallas).
+Compiled from ``gather.cpp`` on first use into the package directory (the built
+library is not tracked).  Without a C++ compiler the planner falls back to scipy
+fancy indexing; :func:`available` says which path is live, and ``chip_smoke.py``
+refuses to run on the fallback.  The kernels are host-side planner accelerators -
+the device compute path is XLA.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ def _build() -> bool:
             subprocess.run(
                 [cc, "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17",
                  _SRC, "-o", _LIB],
-                check=True, capture_output=True, timeout=120)
+                check=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                timeout=120)
             return True
         except (subprocess.CalledProcessError, FileNotFoundError,
                 subprocess.TimeoutExpired):
@@ -551,7 +554,7 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
     """Whole-plan consolidation of :func:`plan_batch_native`: ONE ctypes crossing
     plans every regular batch (gather.cpp plan_batches_all).  Each request dict
     carries the per-batch arguments (``o_int/o_bnd/ni/nb/branch/lo/lsum/B0/B/
-    ni_pad/nb_pad/bound``) plus the caller-allocated int32 map outputs
+    ni_pad/nb_pad/bound``) plus the caller-allocated int32 map results
     (``int_ids/bnd_ids/sperm/map_l/map_r``), which are filled in place.
     Returns a list of (front_pos, front_vals, front_src) views into shared COO
     buffers (kept alive by the returned arrays); ``front_src`` holds per-entry
@@ -600,7 +603,7 @@ def plan_batches_all_native(gather: "CsrGather", reqs):
         g._coltag = np.zeros(g.ncols, dtype=np.int64)
     # every regular batch references the one plan-level pooled symfact layout;
     # the native call reads only reqs[0]'s pools, so differing per-request pools
-    # would silently corrupt the COO output
+    # would silently corrupt the COO result
     assert all(r["pool"] is reqs[0]["pool"] and
                r["locpool"] is reqs[0]["locpool"] for r in reqs), \
         "plan_batches_all_native requires one shared pool/locpool across requests"

@@ -480,7 +480,7 @@ int64_t csr_gather_front_c128(const int64_t *indptr, const int64_t *indices,
 //
 // order: postorder node walk (children first).  in_iptr/in_ipool, in_bptr/in_bpool:
 // CSR layout of the input tree's int/bnd sets.  elim: int64 workspace of size
-// >= ndofs.  Outputs must be preallocated: vals_pool (sum of all int+bnd lens,
+// >= ndofs.  Results must be preallocated: vals_pool (sum of all int+bnd lens,
 // leaves included), vals_off/n_int/n_bnd [n], loc_pool (sum of all bnd lens +
 // root bnd), loc_off/loc_icnt [n].
 // Returns 0 on success, -1 if a pool capacity would be exceeded (malformed tree:
@@ -561,7 +561,7 @@ int64_t symfact_pooled(const int64_t *left, const int64_t *right, int64_t root,
 // Batched schedule-map fills for one planner batch (rows [0, B0) of the int32
 // device maps; the caller handles sharding-padding dummy rows, which are rare).
 // Replaces ~20 [B, m_pad]-class numpy broadcast/where passes per batch with one
-// cache-friendly sweep.  pool/locpool are the pooled symfact outputs; per node b:
+// cache-friendly sweep.  pool/locpool are the pooled symfact results; per node b:
 //   int_ids[b]  = [pool[o_int[b] : +ni[b]]; N-pad]
 //   bnd_ids[b]  = [pool[o_bnd[b] : +nb[b]]; N-pad]
 //   sperm[b]    = [locpool[lo[b] : +lsum[b]]; identity-pad]
@@ -740,11 +740,11 @@ static int64_t plan_batch_impl(
 // factorization plan in ONE ctypes crossing.  Per-node metadata arrives as
 // flat arrays concatenated in batch order (node_off gives each batch's start);
 // per-batch scalars in `meta` (stride 6: node_off, B0, B, ni_pad, nb_pad,
-// is_branch); COO output goes to one shared [pos|val] workspace segmented by
-// pos_off; the int32 map outputs are caller-allocated, their raw pointers in
+// is_branch); COO results go to one shared [pos|val] workspace segmented by
+// pos_off; the int32 map results are caller-allocated, their raw pointers in
 // the uint64 table `outp` (stride 5: int_ids, bnd_ids, sperm, map_l, map_r;
 // map entries 0 for leaf batches).  Emits each batch's COO count in `counts`.
-// Batches are independent (disjoint output regions), so they are round-robin
+// Batches are independent (disjoint result regions), so they are round-robin
 // partitioned across a small thread pool; each extra worker gets its own
 // colmap/coltag scratch (the shared ones serve worker 0).
 template <typename T>

@@ -2,13 +2,15 @@
 
 The reference reaches LAPACK through Julia's ``/``, ``\\``, ``qr`` on dynamically shaped
 matrices (factorization.jl:33-40, blockmatrix.jl:139-142).  Here the same capabilities
-are batched, fixed-shape XLA primitives that map onto the TPU MXU:
+are batched, fixed-shape XLA primitives (on the GPU: batched cuSOLVER/cuBLAS calls
+and XLA's own fusions):
 
 - :func:`lu_factor` / :func:`lu_solve` / :func:`lu_solve_right`: batched pivoted LU and
   the two-sided triangular solves behind ``D \\ B`` and ``B / D``,
 - :func:`schur_complement`: the extend-add Schur update GEMM,
 - :func:`permute_sym`: symmetric gather-permutation of a batch of Schur complements into
-  ``[int_loc; bnd_loc]`` order (factorization.jl:39-41).
+  ``[int_loc; bnd_loc]`` order (factorization.jl:39-41),
+- :func:`scatter`: indexed set/add that stays native on the GPU for complex128.
 
 Padding convention: pivot blocks carry an identity diagonal on padded rows/cols (set by
 the planner) so LU, solves and Schur updates are exact on the real sub-blocks.
@@ -54,7 +56,7 @@ def lu_solve_right(lu: jax.Array, perm: jax.Array, B: jax.Array) -> jax.Array:
 
 def lu_inverse(lu: jax.Array, perm: jax.Array) -> jax.Array:
     """Explicit ``D^{-1}`` from (lu, perm) (batched).  Solve sweeps then apply the
-    pivot block as one GEMM instead of two latency-bound triangular solves."""
+    pivot block as one GEMM instead of two triangular solves."""
     n = lu.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(n, dtype=lu.dtype), lu.shape)
     return lu_solve(lu, perm, eye)
@@ -63,11 +65,8 @@ def lu_inverse(lu: jax.Array, perm: jax.Array) -> jax.Array:
 def block_inverse(D: jax.Array, base: int = 64):
     """Explicit ``D^{-1}`` by recursive block-Schur inversion (batched).
 
-    ``lax.linalg.lu`` + triangular solves lower to column-at-a-time loops on
-    TPU - O(n) sequential steps each touching the full panel, which makes the
-    factor phase launch/latency-bound (measured: the h=512 exact numeric
-    phase spends most of its 184ms there).  This kernel replaces them on the
-    explicit-inverse path with the 2x2 block identity
+    Replaces pivoted LU + triangular solves on the explicit-inverse path with
+    the 2x2 block identity
 
         M = [[A, B], [C, D]],  S = D - C A^{-1} B,
         M^{-1} = [[A^{-1} + W XS T, -W XS], [-XS T, XS]],
@@ -78,7 +77,7 @@ def block_inverse(D: jax.Array, base: int = 64):
     pivoting trade: fronts from the identity-padded planner layout are
     nonsingular, and the bench guard ``max_diag_ratio`` reports the base
     pivot-growth proxy).  Sequential depth falls from O(n) full-width steps to
-    O(n/base) base factorizations plus O(log(n/base)) MXU-shaped GEMM levels.
+    O(n/base) base factorizations plus O(log(n/base)) GEMM levels.
 
     Returns ``(inv, ratio)`` where ``ratio [batch]`` is the max base-block
     pivot diagonal ratio (the conditioning proxy of ``cond_report``)."""
@@ -111,6 +110,21 @@ def schur_complement(Abb: jax.Array, Abi: jax.Array, R: jax.Array) -> jax.Array:
     """``S = Abb - Abi @ R`` (batched GEMM; the multifrontal hot loop,
     factorization.jl:40 and :72)."""
     return Abb - Abi @ R
+
+
+def scatter(x: jax.Array, idx, vals, op: str = "set", **kw) -> jax.Array:
+    """``x.at[idx].set(vals, **kw)`` (or ``.add`` with ``op="add"``).
+
+    XLA:GPU has no native scatter for elements wider than 64 bits: it rewrites a
+    complex128 scatter into a serial loop over the updates.  Such scatters run
+    here as two float64 scatters on the real and imaginary parts (exact: set
+    and add act on each part alone)."""
+    if x.dtype.itemsize <= 8:
+        return getattr(x.at[idx], op)(vals, **kw)
+    vals = jnp.asarray(vals, x.dtype)
+    re = getattr(x.real.at[idx], op)(vals.real, **kw)
+    im = getattr(x.imag.at[idx], op)(vals.imag, **kw)
+    return lax.complex(re, im)
 
 
 def permute_sym(S: jax.Array, perm: jax.Array) -> jax.Array:

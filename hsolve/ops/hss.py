@@ -1,6 +1,6 @@
 """HSS (hierarchically semi-separable) matrices as static level arrays.
 
-TPU-native re-design of the reference's HssMatrices.jl dependency surface (SURVEY.md
+Static-shape re-design of the reference's HssMatrices.jl dependency surface (SURVEY.md
 section 2, external-API table): the pointer-based recursive ``HssMatrix`` becomes flat
 per-level array stacks over a *perfect* binary cluster tree planned statically:
 
@@ -250,7 +250,7 @@ def hss_todense(h: Hss) -> jax.Array:
     A = jnp.zeros((n, n), dtype=h.D.dtype)
     sz = p.ls
     for li in range(p.nleaves):
-        A = A.at[li * p.ls:(li + 1) * p.ls, li * p.ls:(li + 1) * p.ls].set(h.D[li])
+        A = jax.lax.dynamic_update_slice(A, h.D[li], (li * p.ls, li * p.ls))
     for lev in range(1, p.depth + 1):
         m = p.level_nodes(lev)
         Ub = Ubig[lev - 1]
@@ -262,8 +262,10 @@ def hss_todense(h: Hss) -> jax.Array:
             Va = Vb[la: la + blk]
             Uc = Ub[lb: lb + blk]
             Vc = Vb[lb: lb + blk]
-            A = A.at[la: la + blk, lb: lb + blk].set(Ua @ h.B12s[lev - 1][j] @ Vc.T)
-            A = A.at[lb: lb + blk, la: la + blk].set(Uc @ h.B21s[lev - 1][j] @ Va.T)
+            A = jax.lax.dynamic_update_slice(
+                A, Ua @ h.B12s[lev - 1][j] @ Vc.T, (la, lb))
+            A = jax.lax.dynamic_update_slice(
+                A, Uc @ h.B21s[lev - 1][j] @ Va.T, (lb, la))
     return A
 
 
@@ -292,7 +294,7 @@ def hss_entry_factors(h: Hss):
 
 def hss_entries_prepared(ef, rows: jax.Array, cols: jax.Array) -> jax.Array:
     """Entry extraction ``S[rows[i], cols[j]] -> [len(rows), len(cols)]`` from
-    :func:`hss_entry_factors` output (the device equivalent of HssMatrices
+    :func:`hss_entry_factors` result (the device equivalent of HssMatrices
     ``getindex`` via generator products)."""
     D, T, V = ef
     ls = D.shape[-1]

@@ -1,11 +1,11 @@
 """Batched low-rank factorization kernels.
 
-TPU-native replacement for the reference's LowRankApprox.jl surface (SURVEY.md section 2
+Batched replacement for the reference's LowRankApprox.jl surface (SURVEY.md section 2
 external-API table): ``pqrfact`` (column-pivoted rank-revealing QR, used at
 factorization.jl:172-209) and ``LowRankMatrix`` algebra.  Two factorizers:
 
-- :func:`rand_lowrank`: randomized range finder + small SVD - all MXU work (sampling
-  GEMM, tall-skinny QR, tiny SVD); the workhorse for Gauss-transform compression,
+- :func:`rand_lowrank`: randomized range finder + small SVD (sampling GEMM,
+  tall-skinny QR, tiny SVD); the workhorse for Gauss-transform compression,
 - :func:`cpqr`: batched column-pivoted QR *without Q accumulation* - returns the
   pivots/interpolation needed for interpolative decompositions (the row/column
   selection at the heart of the randomized HSS construction).
@@ -47,91 +47,9 @@ class LowRank(NamedTuple):
         return self.U @ jnp.swapaxes(self.V, -1, -2)
 
 
-# test hook: force the Gram-eigh path off-TPU so its accuracy envelope is testable
-# in the CPU suite (see tests/test_lowrank.py)
-_FORCE_GRAM = False
-
-
-def _gram_svd(W: jax.Array):
-    """One Gram-matrix SVD pass: exact for singular values above
-    ~sqrt(eps)*sigma_0, noise below (squaring halves the exponent range)."""
-    m, n = W.shape[-2], W.shape[-1]
-    tiny = jnp.asarray(jnp.finfo(jnp.real(W).dtype).tiny, jnp.real(W).dtype)
-    if m <= n:
-        G = W @ jnp.swapaxes(W, -1, -2).conj()          # [..., m, m]
-        lam, U = jnp.linalg.eigh(G)                     # ascending
-        lam = lam[..., ::-1]
-        U = U[..., ::-1]
-        sv = jnp.sqrt(jnp.maximum(lam, 0))
-        inv = jnp.where(sv > tiny, 1.0 / jnp.maximum(sv, tiny), 0.0)
-        Vh = inv[..., :, None].astype(W.dtype) * (
-            jnp.swapaxes(U, -1, -2).conj() @ W)
-        return U, sv, Vh
-    G = jnp.swapaxes(W, -1, -2).conj() @ W              # [..., n, n]
-    lam, V = jnp.linalg.eigh(G)
-    lam = lam[..., ::-1]
-    V = V[..., ::-1]
-    sv = jnp.sqrt(jnp.maximum(lam, 0))
-    inv = jnp.where(sv > tiny, 1.0 / jnp.maximum(sv, tiny), 0.0)
-    U = (W @ V) * inv[..., None, :].astype(W.dtype)
-    return U, sv, jnp.swapaxes(V, -1, -2).conj()
-
-
-def svd_small(W: jax.Array):
-    """SVD of a small batched matrix, ``full_matrices=False`` semantics.
-
-    XLA:TPU's direct SVD lowering crashes this environment's compiler
-    (``Check failed: buffer != nullptr`` during HLO optimization), so on TPU the
-    factorization is computed from the Gram matrix via ``eigh`` (which lowers
-    fine; f64 eigh on this TPU silently computes at f32 precision, so upcasting
-    is no fix).  One Gram pass only resolves singular values above
-    ~sqrt(eps)*sigma_0; a SECOND pass on the deflated residual
-    ``W - P P^H W`` (P = the trusted leading left singular vectors) re-centers
-    the squaring at sigma_{k+1}, extending the trustworthy relative range to
-    ~eps*sigma_0 (~1e-7 in f32, vs 3.4e-4 single-pass).  Callers still clamp
-    their effective rtol with :func:`gram_rtol_floor`.  Exact-parity paths run
-    f64 on CPU where ``jnp.linalg.svd`` is used.  The branch keys off the
-    process-default backend (inside jit the operand is a tracer with no device).
-    """
-    if jax.default_backend() != "tpu" and not _FORCE_GRAM:
-        return jnp.linalg.svd(W, full_matrices=False)
-    U1, s1, Vh1 = _gram_svd(W)
-    eps = jnp.finfo(jnp.real(W).dtype).eps
-    # trusted pass-1 values: comfortably above the squaring noise floor
-    k = jnp.sum(s1 > 2.0 * jnp.sqrt(eps) * s1[..., :1], axis=-1)     # [...]
-    cols = jnp.arange(s1.shape[-1])
-    mask1 = (cols < k[..., None])
-    P = U1 * mask1[..., None, :].astype(W.dtype)
-    W2 = W - P @ (jnp.swapaxes(P, -1, -2).conj() @ W)
-    U2, s2, Vh2 = _gram_svd(W2)
-    # merge: position i takes pass-1's i-th triple below k, else pass-2's (i-k)-th
-    shift = jnp.clip(cols - k[..., None], 0, s1.shape[-1] - 1)       # [..., r]
-    sel = mask1
-    s = jnp.where(sel, s1, jnp.take_along_axis(s2, shift, axis=-1))
-    U = jnp.where(sel[..., None, :], U1,
-                  jnp.take_along_axis(U2, shift[..., None, :], axis=-1))
-    Vh = jnp.where(sel[..., :, None], Vh1,
-                   jnp.take_along_axis(Vh2, shift[..., :, None], axis=-2))
-    return U, s, Vh
-
-
-def gram_rtol_floor(dtype) -> float:
-    """Smallest trustworthy relative truncation threshold when singular values come
-    from the Gram-matrix ``eigh`` workaround: with the two-pass deflated scheme of
-    :func:`svd_small` this is ~8*eps of the real dtype (~1e-6 in f32, measured;
-    single-pass would be sqrt(eps) ~ 3.4e-4); 0 where the direct SVD is used."""
-    if jax.default_backend() != "tpu" and not _FORCE_GRAM:
-        return 0.0
-    import numpy as np
-
-    return float(8 * np.finfo(np.zeros((), dtype).real.dtype).eps)
-
-
 def _rank_mask(s: jax.Array, atol: float, rtol: float, cap: int):
-    """Rank from singular values: keep sigma_i > max(atol, rtol*sigma_0), capped.
-    ``rtol`` is clamped to the Gram-eigh trust floor (see :func:`gram_rtol_floor`)."""
+    """Rank from singular values: keep sigma_i > max(atol, rtol*sigma_0), capped."""
     s0 = s[..., :1]
-    rtol = jnp.maximum(rtol, gram_rtol_floor(s.dtype))
     keep = s > jnp.maximum(atol, rtol * s0)
     rank = jnp.minimum(jnp.sum(keep, axis=-1), cap)
     mask = (jnp.arange(s.shape[-1]) < rank[..., None]).astype(s.dtype)
@@ -153,7 +71,7 @@ def rand_lowrank(A: jax.Array, key: jax.Array, atol: float, rtol: float,
     Y = A @ omega                                   # [..., m, s]
     Q, _ = jnp.linalg.qr(Y)                         # reduced: [..., m, s]
     W = jnp.swapaxes(Q, -1, -2).conj() @ A          # [..., s, n]
-    Uw, sv, Vh = svd_small(W)
+    Uw, sv, Vh = jnp.linalg.svd(W, full_matrices=False)
     rank, mask = _rank_mask(sv, atol, rtol, cap)
     k = min(cap, s)
     U = (Q @ Uw)[..., :, :k] * (sv[..., None, :k] * mask[..., None, :k])
@@ -263,7 +181,7 @@ def lowrank_recompress(lr: LowRank, atol: float, rtol: float, cap: int) -> LowRa
     Qu, Ru = jnp.linalg.qr(lr.U)
     Qv, Rv = jnp.linalg.qr(lr.V)
     core = Ru @ jnp.swapaxes(Rv, -1, -2)
-    Uc, sv, Vh = svd_small(core)
+    Uc, sv, Vh = jnp.linalg.svd(core, full_matrices=False)
     rank, mask = _rank_mask(sv, atol, rtol, cap)
     k = min(cap, core.shape[-1])
     U = (Qu @ Uc)[..., :, :k] * (sv[..., None, :k] * mask[..., None, :k])

@@ -5,12 +5,12 @@ via IterativeSolvers) and for sub-block extraction (handled at plan time, see
 hsolve.planner).  For the device matvec:
 
 - ELLPACK: rows padded to the max nonzeros-per-row, which turns SpMV into a gather
-  plus a small reduction - fully static shapes, vectorizes on the VPU, and trivially
-  shardable by rows.  The general-purpose path.
+  plus a small reduction - fully static shapes, trivially shardable by rows.  The
+  general-purpose path.
 - DIA: for stencil/FEM matrices with few populated diagonals (every generated
   Poisson/Helmholtz problem), SpMV becomes a handful of shifted multiply-adds with
-  **no gathers at all** - measured ~2.4x faster than ELL on TPU and exactly
-  reproducible in f64.  :func:`spmv_format` picks the format automatically.
+  **no gathers at all**, exactly reproducible in f64.  :func:`spmv_format` picks the
+  format automatically.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ class DiaMatrix:
     """Diagonal-offset storage: ``values[k, i] = A[i, i + offsets[k]]`` (0 outside).
 
     ``offsets`` are static (compile-time) so the matvec lowers to shifted
-    multiply-adds on the VPU with no gather/scatter.
+    multiply-adds with no gather/scatter.
     """
 
     values: jax.Array          # [ndiag, N]
@@ -111,8 +111,14 @@ def dia_matvec(A: DiaMatrix, x: jax.Array) -> jax.Array:
     return acc[:, 0] if vec else acc
 
 
+def spmv(op, x: jax.Array) -> jax.Array:
+    """y = A @ x for an operator from :func:`spmv_format` (DIA or ELL); the
+    ``mv`` of :func:`hsolve.gmres_compiled` with the operator as ``mv_data``."""
+    return dia_matvec(op, x) if isinstance(op, DiaMatrix) else ell_matvec(op, x)
+
+
 def spmv_format(A: sp.spmatrix, dtype=None, max_diags: int = 64):
-    """Pick the fastest device SpMV format for A: (operator_data, matvec_fn).
+    """Pick the device SpMV format for A: (operator_data, matvec_fn).
 
     DIA when A is few-diagonal (all generated stencil problems), else ELL."""
     dia = to_dia(A, dtype=dtype, max_diags=max_diags)

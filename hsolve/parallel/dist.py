@@ -1,13 +1,13 @@
 """Multi-chip execution: shard the level-synchronous schedule over a device mesh.
 
 The reference is strictly single-process (SURVEY.md section 2: no threading, no
-Distributed, no MPI); this module provides the capability-equivalent first-class
-parallelism for TPU, the way BASELINE.json's north star describes it:
+Distributed, no MPI); this module shards the level-synchronous schedule over the
+devices of one host (GPUs joined all to all, so the mesh follows the algorithm alone):
 
 - **elimination-tree parallelism** (the solver analog of data/pipeline parallelism):
   same-level fronts are independent, so the batched level kernels shard their *node*
   axis across the ``tree`` mesh axis; the extend-add gathers between levels become XLA
-  collectives over ICI,
+  collectives,
 - **intra-front parallelism** (the tensor-parallel analog): near the root the batch
   collapses to a handful of large fronts, whose rows shard across the ``front`` axis.
 

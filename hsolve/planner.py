@@ -1,6 +1,6 @@
 """Host-side symbolic planner.
 
-This is the TPU-native replacement for the reference's runtime tree recursion: instead
+This replaces the reference's runtime tree recursion: instead
 of pointer-chasing with dynamic shapes (``factorization.jl:14-27``), the planner turns
 the elimination tree into a *static, level-synchronous schedule* of batched fixed-shape
 device kernels:
@@ -12,7 +12,7 @@ device kernels:
   batch runs as one batched kernel,
 - every sparse submatrix gather ``A[I, J]`` the numeric factorization will need is
   precomputed here as COO (positions, values) into the padded front coordinate system,
-  via one native C++ call per batch (the TPU answer to the reference's
+  via one native C++ call per batch (the counterpart of the reference's
   ``mygetindex.jl`` sparse-getindex monkey-patch); fronts materialize on device,
 - extend-add becomes a per-node *inverse* index map (front position -> child Schur
   position) so device assembly is a gather; the maps are offset identities thanks to
@@ -60,7 +60,7 @@ class BatchPlan:
     batch_size: int            # B (includes sharding-padding dummy rows)
     front_pos: np.ndarray      # [nnz] flat positions into the [B, m_pad, m_pad] fronts
     front_vals: np.ndarray     # [nnz] matching values (sparse part + identity padding)
-    sperm: np.ndarray          # [B, nb_pad] output permutation to [int_loc; bnd_loc]
+    sperm: np.ndarray          # [B, nb_pad] result permutation to [int_loc; bnd_loc]
     int_ids: np.ndarray        # [B, ni_pad] global (permuted) DOF ids, sentinel N
     bnd_ids: np.ndarray        # [B, nb_pad] global (permuted) DOF ids, sentinel N
     levels: np.ndarray         # [B] reference recursion level (root = 1)
@@ -71,7 +71,7 @@ class BatchPlan:
     front_src: Optional[np.ndarray] = None
     compress: bool = False     # this batch's fronts get compressed L/R (+HSS S)
     rank_cap: int = 0          # static low-rank cap for compressed batches
-    # HSS output planning (compressed batches): this batch's Schur complements are
+    # HSS result planning (compressed batches): this batch's Schur complements are
     # emitted as batched HSS on ``cplan`` with per-node content sizes n1/n2
     cplan: object = None       # ClusterPlan of the emitted S
     n1: Optional[np.ndarray] = None   # [B] len(int_loc) per node
@@ -502,7 +502,7 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
             sl_pad = sr_pad = 0
         lsum = loc.n_int[nodes] + loc.n_bnd[nodes]
         if deferred is not None:
-            # whole-plan consolidation: allocate the int32 map outputs here,
+            # whole-plan consolidation: allocate the int32 map results here,
             # record the request, and let plan_factorization issue ONE native
             # call for every regular batch after the schedule loop (the COO
             # views are patched into the BatchPlans then)
@@ -569,8 +569,8 @@ def _plan_regular_batch(gather, tree, loc, nodes, B, B0, ni, nb, ni_pad, nb_pad,
                            in sorted(groups_r.items()))))
         return
 
-    # device index arrays are built int32 from the start (TPU-native index width;
-    # halves the fill traffic of these [B, m_pad]-class buffers); in pooled mode
+    # device index arrays are built int32 from the start (halves the fill
+    # traffic of these [B, m_pad]-class buffers); in pooled mode
     # the C++ fill below writes rows [0, B0) so only dummy rows need prefilling
     alloc = np.empty if pools is not None else \
         (lambda shape, dtype: np.full(shape, N, dtype=dtype))
@@ -888,7 +888,7 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
     # (repeated per-node len() calls dominated host planning at large N)
     pool_all = getattr(tree, "_pool", None)
     if pool_all is not None and loc.pool is not None:
-        # pooled symfact output: sizes are free, and the batch builders index the
+        # pooled symfact result: sizes are free, and the batch-planning code indexes the
         # shared pools directly instead of concatenating ~2n per-node arrays
         ni_all = tree._pool_ni
         nb_all = tree._pool_nb
@@ -984,7 +984,7 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
             nb_pad = _round_up(int(nb.max()), opts.pad) if nb.max() > 0 else 0
             m_pad = ni_pad + nb_pad
 
-            # HSS output plan for compressed batches: the emitted S lives on a
+            # HSS result plan for compressed batches: the emitted S lives on a
             # perfect cluster tree split at [int_loc | bnd_loc]
             # (factorization.jl:109).  Tentative for regular compressed batches -
             # the consumption post-pass below drops it when no structured consumer
@@ -1041,8 +1041,8 @@ def plan_factorization(A: sp.spmatrix, tree: NDTree, opts: SolverOptions,
             bp.cplan = None
 
     nb_root = len(tree.bnd_idx[tree.root])
-    # device index arrays go out as int32 (TPU-native index width; also keeps the
-    # programs identical whether or not the caller enables x64)
+    # device index arrays go out as int32 (half the bytes of int64; also keeps
+    # the programs identical whether or not the caller enables x64)
     for bp in batches:
         for f in ("sperm", "int_ids", "bnd_ids", "map_l", "map_r", "smap"):
             v = getattr(bp, f)

@@ -1,9 +1,9 @@
 """Fully-structured compressed branches: the quasilinear path.
 
-This is the TPU-native counterpart of the reference's HSS branch factorization
-(``_factor_branch`` Val{true} + ``_assemble_blocks`` for HSS children + all-HSS
-``blockfactor``, factorization.jl:78-140, blockmatrix.jl:121-130).  Children Schur
-complements stay in HSS form end-to-end - nothing is densified:
+This is the batched, static-shape counterpart of the reference's HSS branch
+factorization (``_factor_branch`` Val{true} + ``_assemble_blocks`` for HSS children +
+all-HSS ``blockfactor``, factorization.jl:78-140, blockmatrix.jl:121-130).  Children
+Schur complements stay in HSS form end-to-end - nothing is densified:
 
 - the pivot block ``D = [[H1, C12],[C21, H2]]`` couples the children's interior HSS
   blocks (``S1.A11``/``S2.A11``) through the separator-to-separator junction
@@ -88,9 +88,10 @@ def transition_compress(S_perm: jax.Array, n1: jax.Array, n2: jax.Array,
     def per_node(S, k1, k2):
         emb = _embed_idx(cplan, k1, k2, w)
         Spad = jnp.zeros((npd + 1, npd + 1), dtype=S.dtype)
-        Spad = Spad.at[emb[:, None], emb[None, :]].set(S, mode="drop")
+        Spad = dk.scatter(Spad, (emb[:, None], emb[None, :]), S, mode="drop")
         Spad = Spad[:npd, :npd]
-        covered = jnp.zeros(npd + 1, dtype=S.dtype).at[emb].set(1.0, mode="drop")[:npd]
+        covered = dk.scatter(jnp.zeros(npd + 1, dtype=S.dtype), emb, 1.0,
+                             mode="drop")[:npd]
         Spad = Spad + jnp.diag(1.0 - covered)
         return hss_compress_dense(Spad, cplan, _SAFETY * atol, _SAFETY * rtol,
                                   cap)
@@ -328,12 +329,14 @@ def _structured_factor_body(sh1: SchurHss, sh2: SchurHss, cross: dict,
         int_ids=int_ids, bnd_ids=bnd_ids, h1=h1, h2=h2)
 
     # --- exact skinny Gauss transforms ---
-    r = sh1.h.r
+    # the two children's generator widths may differ (their cluster plans and
+    # rank caps do): each gets its own column group
+    w1, w2 = Ui1.shape[-1], Ui2.shape[-1]
     B = sh1.n1.shape[0]
     rib12, rib21 = Uib12.shape[-1], Uib21.shape[-1]
     rbi12, rbi21 = Ubi12.shape[-1], Ubi21.shape[-1]
-    kk_ib = 2 * r + rib12 + rib21
-    kk_bi = 2 * r + rbi12 + rbi21
+    kk_ib = w1 + w2 + rib12 + rib21
+    kk_bi = w1 + w2 + rbi12 + rbi21
 
     def scat(A, rows_off, col_off, total_rows, kk):
         out = jnp.zeros((B, total_rows, kk), dtype=dtype)
@@ -341,19 +344,19 @@ def _structured_factor_body(sh1: SchurHss, sh2: SchurHss, cross: dict,
                       col_off: col_off + A.shape[2]].set(A)
 
     # Aib = AibU @ AibV^T : groups [child1-gen, child2-gen, cross i1b2, cross i2b1]
-    AibU = (scat(Ui1, 0, 0, h1 + h2, kk_ib) + scat(Ui2, h1, r, h1 + h2, kk_ib)
-            + scat(Uib12, 0, 2 * r, h1 + h2, kk_ib)
-            + scat(Uib21, h1, 2 * r + rib12, h1 + h2, kk_ib))
-    AibV = (scat(V1b, 0, 0, q1 + q2, kk_ib) + scat(V2b, q1, r, q1 + q2, kk_ib)
-            + scat(Vib12, q1, 2 * r, q1 + q2, kk_ib)
-            + scat(Vib21, 0, 2 * r + rib12, q1 + q2, kk_ib))
+    AibU = (scat(Ui1, 0, 0, h1 + h2, kk_ib) + scat(Ui2, h1, w1, h1 + h2, kk_ib)
+            + scat(Uib12, 0, w1 + w2, h1 + h2, kk_ib)
+            + scat(Uib21, h1, w1 + w2 + rib12, h1 + h2, kk_ib))
+    AibV = (scat(V1b, 0, 0, q1 + q2, kk_ib) + scat(V2b, q1, w1, q1 + q2, kk_ib)
+            + scat(Vib12, q1, w1 + w2, q1 + q2, kk_ib)
+            + scat(Vib21, 0, w1 + w2 + rib12, q1 + q2, kk_ib))
     # Abi = AbiU @ AbiV^T
-    AbiU = (scat(Ub1, 0, 0, q1 + q2, kk_bi) + scat(Ub2, q1, r, q1 + q2, kk_bi)
-            + scat(Ubi12, 0, 2 * r, q1 + q2, kk_bi)
-            + scat(Ubi21, q1, 2 * r + rbi12, q1 + q2, kk_bi))
-    AbiV = (scat(V1a, 0, 0, h1 + h2, kk_bi) + scat(V2a, h1, r, h1 + h2, kk_bi)
-            + scat(Vbi12, h1, 2 * r, h1 + h2, kk_bi)
-            + scat(Vbi21, 0, 2 * r + rbi12, h1 + h2, kk_bi))
+    AbiU = (scat(Ub1, 0, 0, q1 + q2, kk_bi) + scat(Ub2, q1, w1, q1 + q2, kk_bi)
+            + scat(Ubi12, 0, w1 + w2, q1 + q2, kk_bi)
+            + scat(Ubi21, q1, w1 + w2 + rbi12, q1 + q2, kk_bi))
+    AbiV = (scat(V1a, 0, 0, h1 + h2, kk_bi) + scat(V2a, h1, w1, h1 + h2, kk_bi)
+            + scat(Vbi12, h1, w1 + w2, h1 + h2, kk_bi)
+            + scat(Vbi21, 0, w1 + w2 + rbi12, h1 + h2, kk_bi))
 
     RU = d_apply(lev, AibU)                 # R = (D^{-1} AibU) AibV^T
     LV = d_apply(lev, AbiV, adjoint=True)   # L = AbiU (D^{-T} AbiV)^T
@@ -373,7 +376,7 @@ def _structured_factor_body(sh1: SchurHss, sh2: SchurHss, cross: dict,
         A1, A2, Ub12, Vb12, Ub21, Vb21, KUn, RVn, sm = op[:9]
         s = X.shape[-1]
         Xb = jnp.zeros((nq + 1, s), dtype=X.dtype)
-        Xb = Xb.at[sm].add(X)                            # pad -> bnd layout
+        Xb = dk.scatter(Xb, sm, X, "add")               # pad -> bnd layout
         Xb = Xb[:nq]
         x1, x2 = Xb[:q1], Xb[q1:]
         if not adjoint:

@@ -8,6 +8,8 @@ from hsolve.planner import plan_factorization
 from hsolve.utils.checkpoint import load_solver, save_solver
 from hsolve.utils.profiling import analyze_plan, factor_flops, roofline_report
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 def test_checkpoint_roundtrip(tmp_path):
     A, b, shape = poisson2d(17)
@@ -40,7 +42,7 @@ def test_flop_accounting():
     stats = analyze_plan(plan)
     assert len(stats) == len(plan.batches)
     assert factor_flops(plan) > 0
-    rep = roofline_report(plan, measured_factor_s=0.1)
+    rep = roofline_report(plan, measured_factor_s=0.1, device_kind=H100)
     assert rep["factor_gflops"] > 0 and rep["nnz_per_s"] > 0
     assert len(rep["per_level"]) == len(plan.batches)
 
@@ -116,9 +118,9 @@ def test_plan_flop_model_vs_xla_whole_program():
             c = c[0]
         xla = float(c.get("flops", 0.0))
         model = sum(s.flops for s in stats)
-        # XLA's CPU cost_analysis reports 0 flops for LAPACK custom calls
-        # (LU / triangular solve), so the like-for-like comparison excludes
-        # the model's lapack_flops share (on TPU those lower to real HLO)
+        # XLA's cost_analysis reports 0 flops for the LAPACK custom calls
+        # (LU / triangular solve; cuSOLVER/cuBLAS on the GPU), so the
+        # like-for-like comparison excludes the model's lapack_flops share
         comparable = model - sum(s.lapack_flops for s in stats)
         ratio = comparable / max(xla, 1.0)
         assert 1 / 1.6 < ratio < 1.6, \
@@ -143,7 +145,7 @@ def test_structured_flops_in_roofline():
         assert np.isfinite(s.solve_flops) and s.solve_flops > 0
         assert s.bytes_moved > 0    # linear-in-n HSS traffic (asymptotically
         # below the dense 3 m^2 estimate; at tiny fronts the constants cross)
-    rep = roofline_report(plan, measured_factor_s=0.1)
+    rep = roofline_report(plan, measured_factor_s=0.1, device_kind=H100)
     assert rep["factor_gflops"] > 0
 
 
@@ -232,3 +234,70 @@ def test_cond_report_explicit_inverse_guard():
     As = (D @ A @ D).tocsr()
     F2 = factor(As, tree, swlevel=0, explicit_inverse=True)
     assert F2.cond_report()["risky"]
+
+
+def test_roofline_peaks_by_device_kind():
+    """Peaks come from one table keyed by device_kind: an H100 gives a finite
+    roofline in f64 and f32 (TF32 where the precision allows it), and a kind
+    missing from the table raises instead of falling back to a default."""
+    A, b, shape = poisson2d(33)
+    plan = plan_factorization(A, nested_dissection(shape, leafmax=30),
+                              SolverOptions(swlevel=0))
+    for dt in ("float64", "float32", "complex128"):
+        rep = roofline_report(plan, measured_factor_s=0.1, device_kind=H100,
+                              dtype=dt)
+        assert np.isfinite(rep["speed_of_light_s"]) and rep["speed_of_light_s"] > 0
+        assert rep["device_kind"] == H100 and not rep["sol_violation"]
+    f32 = roofline_report(plan, 0.1, H100, "float32")["speed_of_light_s"]
+    plan.opts = plan.opts.replace(matmul_precision="default")
+    tf32 = roofline_report(plan, 0.1, H100, "float32")["speed_of_light_s"]
+    assert tf32 <= f32
+    with pytest.raises(ValueError, match="no published peaks"):
+        roofline_report(plan, 0.1, device_kind="cpu")
+
+
+def test_explicit_inverse_default_ignores_backend(monkeypatch):
+    """The solve mode is a plain option: the default (triangular-solve sweeps)
+    holds whatever backend JAX reports."""
+    import jax
+
+    A, b, shape = poisson2d(17)
+    tree = nested_dissection(shape, leafmax=20)
+    assert SolverOptions().explicit_inverse is False
+    for backend in ("gpu", "cpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        F = factor(A, tree, swlevel=0)
+        assert F.opts.explicit_inverse is False
+        assert all(lev.dinv is None and lev.lu is not None for lev in F.levels)
+        assert F.root is None or F.root.inv is None
+
+
+@pytest.mark.parametrize("env_dir", [None, "elsewhere"])
+def test_compile_cache_placement(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, wins and nothing is set in code;
+    otherwise the cache sits at the fixed .jax_cache/ in the repository root."""
+    import os
+
+    import jax
+
+    from hsolve.utils import runtime
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            jax.config.update("jax_compilation_cache_dir", str(tmp_path))
+            got = runtime.configure_compile_cache()
+            assert got == runtime.CACHE_DIR
+            assert os.path.basename(got) == ".jax_cache"
+            assert os.path.dirname(got) == os.path.dirname(
+                os.path.dirname(os.path.abspath(__file__)))
+            assert jax.config.jax_compilation_cache_dir == runtime.CACHE_DIR
+        else:
+            want = str(tmp_path / env_dir)
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+            jax.config.update("jax_compilation_cache_dir", "untouched")
+            assert runtime.configure_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == "untouched"
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -188,3 +188,47 @@ def test_front_src_device_resident_gather():
     x2 = np.asarray(hsolve.factor_with_plan(plan, opts,
                                             dtype=np.float64).solve(b))
     np.testing.assert_allclose(x2, x, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "complex64", "complex128"])
+@pytest.mark.parametrize("op", ["set", "add"])
+def test_scatter_matches_native(dtype, op):
+    """``ops.dense.scatter`` (real and imaginary halves for complex128) gives
+    what ``x.at[idx].set/add`` gives, duplicates and dropped indices included."""
+    import jax.numpy as jnp
+
+    from hsolve.ops.dense import scatter
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((9, 3)) + 1j * rng.standard_normal((9, 3))
+    x = jnp.asarray(x if "complex" in dtype else x.real, dtype)
+    # 'add' sums a duplicate; 'set' gets unique rows (duplicate order is
+    # unspecified).  Index 11 is out of range and dropped.
+    idx = jnp.asarray([4, 0, 4, 11, 7] if op == "add" else [4, 0, 11, 7])
+    v = rng.standard_normal((len(idx), 3)) * (1 - 2j)
+    v = jnp.asarray(v if "complex" in dtype else v.real, dtype)
+    got = jax.jit(lambda a, i, b: scatter(a, i, b, op, mode="drop"))(x, idx, v)
+    want = getattr(x.at[idx], op)(v, mode="drop")
+    assert got.dtype == x.dtype
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("fdtype", ["float64", "float32"])
+def test_precondition_with_data_casts(fdtype):
+    """``precondition_with_data`` applies the factor in its own dtype and returns
+    the Krylov vector's; ``spmv`` dispatches on the operator format."""
+    import jax.numpy as jnp
+
+    import hsolve
+
+    A, b, shape = poisson2d(17)
+    F = factor(A, nested_dissection(shape, leafmax=20), swlevel=0, dtype=fdtype)
+    v = jnp.asarray(b, jnp.float64)
+    y = hsolve.precondition_with_data(F.solve_data, v)
+    assert y.dtype == jnp.float64
+    x_ref = spla.spsolve(A.tocsc(), b)
+    tol = 1e-10 if fdtype == "float64" else 1e-4
+    assert np.linalg.norm(np.asarray(y) - x_ref) / np.linalg.norm(x_ref) < tol
+    for fmt in (hsolve.to_dia(A), hsolve.to_ell(A)):
+        np.testing.assert_allclose(np.asarray(hsolve.spmv(fmt, v)), A @ b,
+                                   rtol=1e-12)

@@ -1,6 +1,6 @@
 """Multi-device sharded factorization on the virtual 8-device CPU mesh.
 
-The reference has no distributed capability; this is the TPU-native tree-parallel path
+The reference has no distributed capability; this is the tree-parallel path
 (hsolve.parallel.dist) validated the standard JAX way: 8 virtual CPU devices."""
 
 import jax

@@ -8,6 +8,7 @@ tolerance; test/rungmres.jl semantics)."""
 import numpy as np
 import pytest
 
+import hsolve
 from hsolve import (SolverOptions, ell_matvec, factor, gmres, helmholtz2d,
                     nested_dissection, poisson2d, to_ell)
 from hsolve.planner import plan_factorization
@@ -95,3 +96,24 @@ def test_structured_planner_pooled_matches_fallback(monkeypatch):
             op, ol = np.argsort(sp["pos"]), np.argsort(sl["pos"])
             np.testing.assert_array_equal(sp["pos"][op], sl["pos"][ol])
             np.testing.assert_allclose(sp["vals"][op], sl["vals"][ol], rtol=1e-15)
+
+
+def test_structured_siblings_with_unequal_generator_widths():
+    """At h=96 with swsize=64, leafsize=32 some structured batches join children
+    whose HSS generator widths differ (their clusters differ in size); each
+    child keeps its own column group in the Gauss transforms, and the
+    preconditioner converges."""
+    import jax.numpy as jnp
+
+    A, b, shape = helmholtz2d(96, k=40.0)
+    b = np.asarray(b)
+    tree = nested_dissection(shape, leafmax=100)
+    F = factor(A, tree, swlevel=-2, swsize=64, atol=1e-2, rtol=1e-2, kest=200,
+               stepsize=100, leafsize=32)
+    assert any(type(lev).__name__ == "StructuredLevel" for lev in F.levels)
+    op = hsolve.spmv_format(A)[0]
+    x, info = hsolve.gmres_compiled(
+        hsolve.spmv, hsolve.precondition_with_data, jnp.asarray(b),
+        reltol=1e-9, restart=30, maxiter=60, mv_data=op, M_data=F.solve_data)
+    relres = np.linalg.norm(A @ np.asarray(x) - b) / np.linalg.norm(b)
+    assert info["converged"] and info["iters"] <= 15 and relres < 1e-9
